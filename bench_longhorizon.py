@@ -1,15 +1,14 @@
 """Long-horizon solve evidence: sequential scan vs Schur-partitioned
-block-tridiagonal solve on the real device, at n in {65, 129, 257, 1025}.
+block-tridiagonal solve on one device, at n in {65, 129, 257, 1025}.
 
-Justifies (or corrects) the n >= 256 auto-dispatch in ops/btsolve.py: the
-scan's critical path is n sequential block steps; the separator (Schur)
-decomposition (solver/partitioned.py) cuts it to n/P + P at the cost of
-extra FLOPs. Random SPD block-tridiagonal systems at the WAM block size
-(m = 14), B = 256 lanes.
+The scan's critical path is n sequential block steps; the separator
+(Schur) decomposition (solver/partitioned.py) cuts it to n/P + P at the
+cost of extra FLOPs. Random SPD block-tridiagonal systems at the WAM block
+size (m = 14), B = 256 lanes.
 
 Prints one JSON line per (n, solver) with ms per solve (best of 3, host
-materialization as the barrier) and the residual norm of the worst lane.
-Writes LONGHORIZON.json with the full table.
+materialization as the barrier) and the residual norm of the worst lane,
+after a line naming the device.
 """
 
 import json
@@ -26,20 +25,19 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from gpmp2_jax.compile_cache import configure_compile_cache
 
-    from gpmp2_tpu.solver.blocktridiag import block_tridiag_solve
-    from gpmp2_tpu.solver.partitioned import block_tridiag_solve_partitioned
+    configure_compile_cache()
+    from gpmp2_jax.solver.blocktridiag import block_tridiag_solve
+    from gpmp2_jax.solver.partitioned import block_tridiag_solve_partitioned
 
     B = int(os.environ.get("LH_BATCH", "256"))
     m = int(os.environ.get("LH_M", "14"))
     dtype = jnp.float32
     rng = np.random.default_rng(0)
-    results = []
-    device = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    print(json.dumps({"platform": dev.platform, "device_kind": dev.device_kind,
+                      "device_count": len(jax.devices())}), flush=True)
 
     def make_system(n):
         # SPD block-tridiag: D_i = A A^T + (m + 2) I, U_i random with
@@ -79,7 +77,6 @@ def main():
                "ms": round(t_scan * 1e3, 2),
                "rel_residual": residual(D, U, b, x_scan)}
         print(json.dumps(row), flush=True)
-        results.append(row)
 
         P = max(2, min(64, n // 64))
         part = jax.jit(lambda d, u, bb: jax.vmap(
@@ -90,13 +87,6 @@ def main():
                "ms": round(t_part * 1e3, 2),
                "rel_residual": residual(D, U, b, x_part)}
         print(json.dumps(row), flush=True)
-        results.append(row)
-
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "LONGHORIZON.json")
-    with open(out_path, "w") as f:
-        json.dump({"device": device, "results": results}, f, indent=1)
-    print(f"wrote {out_path}")
 
 
 if __name__ == "__main__":

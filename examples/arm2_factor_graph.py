@@ -8,22 +8,17 @@ state, GP-interpolated obstacle factors) and hand it to the Gauss-Newton
 optimizer, exactly as the reference script pushes gtsam factors onto a
 NonlinearFactorGraph (Arm2FactorGraphExample.m:76-148).
 
-Run: PYTHONPATH=. python examples/arm2_factor_graph.py [--tpu] [--dogleg]
+Run: PYTHONPATH=. python examples/arm2_factor_graph.py [--dogleg]
 """
 
 import sys
 
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams, generate_arm
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax import FactorGraph, OptimizerParams, generate_arm
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def main():

@@ -9,22 +9,17 @@ reference script's manual NonlinearFactorGraph push loop
 (Arm3FactorGraphExample.m:74-122). --dogleg switches to the trust-region
 optimizer (lines 140-152).
 
-Run: PYTHONPATH=. python examples/arm3_factor_graph.py [--tpu] [--dogleg]
+Run: PYTHONPATH=. python examples/arm3_factor_graph.py [--dogleg]
 """
 
 import sys
 
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams, generate_arm
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax import FactorGraph, OptimizerParams, generate_arm
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def main():

@@ -8,15 +8,11 @@ velocity prior, GP priors, and planar obstacle factors on the
 OneObstacleDataset world. The optimizer is free to choose ANY final
 configuration whose end effector reaches the point.
 
-Run: PYTHONPATH=. python examples/arm3_goal_reach.py [--tpu]
+Run: PYTHONPATH=. python examples/arm3_goal_reach.py
 """
-
-import sys
 
 import jax
 
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 # float64 as in GTSAM: from the all-zeros start the arm is singular (every
 # end-effector Jacobian column points along +y) and the 1e8 goal weight
 # makes the first Newton systems too ill-conditioned for float32
@@ -25,10 +21,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams, generate_arm
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.kinematics.fk import link_poses
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax import FactorGraph, OptimizerParams, generate_arm
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.kinematics.fk import link_poses
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def main():

@@ -6,22 +6,15 @@ is clamped to exactly 0 (limits [0, 0], sigma 1e-3), velocities to
 first two joints within the velocity budget. Built by hand through the
 FactorGraph API with the reference's exact limit vectors.
 
-Run: PYTHONPATH=. python examples/arm3_joint_limit.py [--tpu]
+Run: PYTHONPATH=. python examples/arm3_joint_limit.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams, generate_arm
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax import FactorGraph, OptimizerParams, generate_arm
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def main():

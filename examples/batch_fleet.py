@@ -1,43 +1,33 @@
-"""TPU-native fleet planning: thousands of problems across a device mesh.
+"""Fleet planning: thousands of problems across a device mesh.
 
 No reference analog (the C++ library plans one problem per call; SURVEY.md
-section 2.11): this is the capability the TPU rebuild adds. B randomized
-WAM problems shard over all available devices ('dp' axis); one jitted solve
-runs the whole fleet to per-problem convergence.
+section 2.11): this is the capability the batched rebuild adds. B
+randomized WAM problems shard over all available devices ('dp' axis); one
+jitted solve runs the whole fleet to per-problem convergence.
 
-Run: PYTHONPATH=. python examples/batch_fleet.py           # 8 virtual CPU devices
-     PYTHONPATH=. python examples/batch_fleet.py --tpu     # real chip(s)
+Run: PYTHONPATH=. python examples/batch_fleet.py       # every local GPU
+     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+         PYTHONPATH=. python examples/batch_fleet.py   # 8 virtual CPU devices
 """
 
 import os
-import sys
-
-if "--tpu" not in sys.argv:
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "")
-        + " --xla_force_host_platform_device_count=8"
-    ).strip()
+import time
 
 import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
-import time
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.parallel import make_mesh, shard_problems
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.batch import (
+from gpmp2_jax.parallel import make_mesh, shard_problems
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.batch import (
     infer_batch_axes,
     optimizer_params_from_setting,
     plan_batch,
 )
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-from gpmp2_tpu.obstacle.sdf import SignedDistanceField
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.obstacle.sdf import SignedDistanceField
+from gpmp2_jax.robots import generate_arm
 
 
 def main():

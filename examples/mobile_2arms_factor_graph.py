@@ -7,22 +7,15 @@ GP-interpolated obstacle factors (check_inter 0 in the reference's 50-step
 config; here 1 per interval at 20 steps for the same total check count),
 Gauss-Newton solve. Base drives (-2, 2, -pi/2) -> (2, -1, pi/2).
 
-Run: PYTHONPATH=. python examples/mobile_2arms_factor_graph.py [--tpu]
+Run: PYTHONPATH=. python examples/mobile_2arms_factor_graph.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.robots import generate_mobile_arm
+from gpmp2_jax import FactorGraph, OptimizerParams
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.robots import generate_mobile_arm
 
 
 def main():
@@ -58,7 +51,7 @@ def main():
                 g.add_obstacle_gp(i - 1, i, marm, sdf, cost_sigma, eps,
                                   Qc, dt, tau)
 
-    from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+    from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
     init = init_traj_straight_line(space, start, goal, n_steps, total_time)
     print(f"Initial Error = {float(g.error(init)):.1f}")

@@ -6,22 +6,15 @@ priors, Lie GP priors, planar mobile-arm obstacle factors, vehicle
 dynamics (sigma 0.001) — optimized with Gauss-Newton. The base drives from
 (-1, 0, pi/2) to (1, 0, pi/2) around the block.
 
-Run: PYTHONPATH=. python examples/mobile_arm2_factor_graph.py [--tpu]
+Run: PYTHONPATH=. python examples/mobile_arm2_factor_graph.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.robots import generate_mobile_arm
+from gpmp2_jax import FactorGraph, OptimizerParams
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.robots import generate_mobile_arm
 
 
 def main():
@@ -55,7 +48,7 @@ def main():
         if i > 0:
             g.add_gp_prior(i - 1, i, dt, Qc)
 
-    from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+    from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
     init = init_traj_straight_line(space, start, goal, n_steps, total_time)
     print(f"Initial Error = {float(g.error(init)):.1f}")

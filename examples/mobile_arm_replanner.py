@@ -11,20 +11,13 @@ the goal mid-execution, fuse a measured pose, and re-solve incrementally.
 Run: PYTHONPATH=. python examples/mobile_arm_replanner.py
 """
 
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.planner import TrajOptimizerSetting, batch_traj_optimize
-from gpmp2_tpu.planner.isam2 import ISAM2TrajOptimizer
-from gpmp2_tpu.robots import generate_mobile_arm
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.planner import TrajOptimizerSetting, batch_traj_optimize
+from gpmp2_jax.planner.isam2 import ISAM2TrajOptimizer
+from gpmp2_jax.robots import generate_mobile_arm
 
 
 def main():

@@ -7,24 +7,17 @@ factor (no sideways sliding), planned through a doorway-like map.
 Run: PYTHONPATH=. python examples/mobile_base.py
 """
 
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner import (
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner import (
     TrajOptimizerSetting,
     batch_traj_optimize,
     collision_cost,
     make_problem,
 )
-from gpmp2_tpu.robots import generate_mobile_base
+from gpmp2_jax.robots import generate_mobile_base
 
 
 def main():

@@ -6,22 +6,16 @@ build a planner DAG with random inter-chain connections, jointly optimize
 EVERY node in one factor graph, then extract the best hybrid path by
 Dijkstra over the optimized factor costs.
 
-Run: PYTHONPATH=. python examples/multi_graph_point_robot.py [--tpu]
+Run: PYTHONPATH=. python examples/multi_graph_point_robot.py
 """
 
-import sys
-
 import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import PointRobotFK, make_robot_model
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner import (
+from gpmp2_jax import PointRobotFK, make_robot_model
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner import (
     build_planner_graph,
     edge_costs,
     make_multigraph_problem,
@@ -49,7 +43,7 @@ def main():
     avg_vel = (goal / n_steps) / dt
 
     # candidate chains from the GP posterior (get_initializations)
-    from gpmp2_tpu.geometry.statespace import StateSpace
+    from gpmp2_jax.geometry.statespace import StateSpace
 
     space = StateSpace("vector", 2)
     chains = sample_initializations(

@@ -6,26 +6,19 @@ one r=1.5 sphere), vehicle-dynamics factor at every state, Lie GP priors,
 planar obstacle factors + GP-interpolated factors, Dogleg optimization
 from (0,0,0) to (17,17,0) across the MultiObstacleDataset.
 
-Run: PYTHONPATH=. python examples/point_robot_3d.py [--tpu]
+Run: PYTHONPATH=. python examples/point_robot_3d.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import (
+from gpmp2_jax import (
     FactorGraph,
     OptimizerParams,
     Pose2MobileBaseFK,
     make_robot_model,
 )
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
 
 
 def main():
@@ -61,7 +54,7 @@ def main():
                 g.add_obstacle_gp(i - 1, i, robot, sdf, cost_sigma, eps,
                                   Qc, dt, tau)
 
-    from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+    from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
     init = init_traj_straight_line(space, start, goal, n_steps, total_time)
     print(f"Initial Error = {float(g.error(init)):.1f}")

@@ -8,27 +8,20 @@ remaining distance (sigma_goal * |x - goal| / initial distance, lines
 222-235) so far-away goals pull softly and the final approach pins hard;
 the robot "executes" to state 1 of each plan and replans.
 
-Run: PYTHONPATH=. python examples/point_robot_3d_rh.py [--tpu]
+Run: PYTHONPATH=. python examples/point_robot_3d_rh.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import (
+from gpmp2_jax import (
     FactorGraph,
     OptimizerParams,
     PointRobotFK,
     make_robot_model,
 )
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def plan_window(space, robot, sdf, cur_pose, cur_vel, goal, goal_sigma,
@@ -54,7 +47,7 @@ def plan_window(space, robot, sdf, cur_pose, cur_vel, goal, goal_sigma,
     # reference window init: every state AT the current pose with the
     # average velocity toward the goal (get_plan, lines 29-32) — avoids the
     # overshoot a straight-line init causes on short horizons
-    from gpmp2_tpu.planner import Trajectory
+    from gpmp2_jax.planner import Trajectory
 
     avg_vel = space.local(cur_pose, goal) / total_time
     init = Trajectory(

@@ -9,21 +9,14 @@ reuses one compiled program).
 Run: PYTHONPATH=. python examples/receding_horizon.py
 """
 
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.kinematics import PointRobotFK, make_robot_model
-from gpmp2_tpu.planner import TrajOptimizerSetting, batch_traj_optimize
-from gpmp2_tpu.planner.problem import Trajectory
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.kinematics import PointRobotFK, make_robot_model
+from gpmp2_jax.planner import TrajOptimizerSetting, batch_traj_optimize
+from gpmp2_jax.planner.problem import Trajectory
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def main():

@@ -8,20 +8,14 @@ Run: PYTHONPATH=. python examples/save_sdf.py
 """
 
 import os
-import sys
 import tempfile
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_3d_dataset, sdf_from_occupancy
-from gpmp2_tpu.obstacle.sdf import sdf_lookup
-from gpmp2_tpu.utils import load_sdf, save_sdf
+from gpmp2_jax.datasets import generate_3d_dataset, sdf_from_occupancy
+from gpmp2_jax.obstacle.sdf import sdf_lookup
+from gpmp2_jax.utils import load_sdf, save_sdf
 
 
 def main():

@@ -7,22 +7,15 @@ factors, GP-interpolated obstacle factors (total_check_step 100) — pushed
 one factor at a time through the public FactorGraph API, then optimized
 with Gauss-Newton.
 
-Run: PYTHONPATH=. python examples/wam_factor_graph.py [--tpu]
+Run: PYTHONPATH=. python examples/wam_factor_graph.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu import FactorGraph, OptimizerParams, generate_arm
-from gpmp2_tpu.datasets import generate_3d_dataset, sdf_from_occupancy
-from gpmp2_tpu.obstacle import obstacle_factor_error
+from gpmp2_jax import FactorGraph, OptimizerParams, generate_arm
+from gpmp2_jax.datasets import generate_3d_dataset, sdf_from_occupancy
+from gpmp2_jax.obstacle import obstacle_factor_error
 
 
 def main():
@@ -54,7 +47,7 @@ def main():
             tau = j * (total_time / total_check)
             g.add_obstacle_gp(i - 1, i, arm, sdf, cost_sigma, eps, Qc, dt, tau)
 
-    from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+    from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
     init = init_traj_straight_line(arm.space, start, goal, n_steps, total_time)
     print(f"Initial Error = {float(g.error(init)):.1f}")

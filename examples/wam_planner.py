@@ -5,29 +5,22 @@ config): WAMDeskDataset -> EDT SDF -> WAMArm -> batch_traj_optimize with
 total_time 2s, 10 steps, 100 collision-checked states, cost_sigma 0.02 ->
 collision-cost check.
 
-Run: PYTHONPATH=. python examples/wam_planner.py [--tpu]
+Run: PYTHONPATH=. python examples/wam_planner.py
 """
-
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_3d_dataset, sdf_from_occupancy
-from gpmp2_tpu.planner import (
+from gpmp2_jax.datasets import generate_3d_dataset, sdf_from_occupancy
+from gpmp2_jax.planner import (
     TrajOptimizerSetting,
     batch_traj_optimize,
     collision_cost,
     interpolate_traj,
     make_problem,
 )
-from gpmp2_tpu.robots import generate_arm
-from gpmp2_tpu.utils import Timer
+from gpmp2_jax.robots import generate_arm
+from gpmp2_jax.utils import Timer
 
 
 def main():

@@ -8,20 +8,13 @@ re-solve incrementally.
 Run: PYTHONPATH=. python examples/wam_replanner.py
 """
 
-import sys
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_3d_dataset, sdf_from_occupancy
-from gpmp2_tpu.planner import TrajOptimizerSetting, batch_traj_optimize
-from gpmp2_tpu.planner.isam2 import ISAM2TrajOptimizer
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.datasets import generate_3d_dataset, sdf_from_occupancy
+from gpmp2_jax.planner import TrajOptimizerSetting, batch_traj_optimize
+from gpmp2_jax.planner.isam2 import ISAM2TrajOptimizer
+from gpmp2_jax.robots import generate_arm
 
 
 def main():

@@ -7,16 +7,12 @@ POSE (not a goal configuration — the end-config prior is removed and
 replaced by a GaussianPriorWorkspacePoseArm on the last state,
 WAMWorkspaceConstraintsExample.m:94-102).
 
-Run: PYTHONPATH=. python examples/wam_workspace_constraints.py [--tpu]
+Run: PYTHONPATH=. python examples/wam_workspace_constraints.py
 """
 
 import dataclasses
-import sys
-
 import jax
 
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 # the workspace-pose goal carries a 1e8 precision against a ~1.2 m initial
 # EE error: the normal equations need double (the reference runs GTSAM in
 # double throughout)
@@ -25,17 +21,17 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_3d_dataset, sdf_from_occupancy
-from gpmp2_tpu.kinematics.fk import link_poses
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.batch import (
+from gpmp2_jax.datasets import generate_3d_dataset, sdf_from_occupancy
+from gpmp2_jax.kinematics.fk import link_poses
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.batch import (
     infer_batch_axes,
     optimizer_params_from_setting,
     plan_batch,
     set_workspace_prior,
 )
-from gpmp2_tpu.planner.problem import Trajectory, collision_cost
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.planner.problem import Trajectory, collision_cost
+from gpmp2_jax.robots import generate_arm
 
 
 def main():

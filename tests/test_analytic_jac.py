@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.kinematics.fk import ArmFK, PointRobotFK
-from gpmp2_tpu.kinematics.robot import (
+from gpmp2_jax.kinematics.fk import ArmFK, PointRobotFK
+from gpmp2_jax.kinematics.robot import (
     make_robot_model,
     sphere_centers_and_jac,
     sphere_centers_world,
 )
-from gpmp2_tpu.obstacle.sdf import PlanarSDF, SignedDistanceField
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.problem import _obs_res, _obs_res_and_jac
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.obstacle.sdf import PlanarSDF, SignedDistanceField
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.problem import _obs_res, _obs_res_and_jac
+from gpmp2_jax.robots import generate_arm
 
 
 class TestSphereJacobian:
@@ -29,8 +29,8 @@ class TestSphereJacobian:
             np.testing.assert_allclose(np.asarray(J), np.asarray(J_ad), atol=1e-10)
 
     def test_arm_with_base_pose(self):
-        from gpmp2_tpu.geometry import so3
-        from gpmp2_tpu.geometry.se3 import Pose3
+        from gpmp2_jax.geometry import so3
+        from gpmp2_jax.geometry.se3 import Pose3
 
         base = Pose3(so3.ypr(0.7, -0.2, 0.4), jnp.asarray([1.0, -2.0, 0.5]))
         arm = ArmFK.create([0.5, 0.4, 0.3], [0.1, -0.2, 0.3], [0.0, 0.2, 0.0],
@@ -130,34 +130,34 @@ class TestMobileSphereJacobian:
             np.testing.assert_allclose(np.asarray(J), np.asarray(J_ad), atol=1e-9)
 
     def test_mobile_base(self):
-        from gpmp2_tpu.robots import generate_mobile_base
+        from gpmp2_jax.robots import generate_mobile_base
 
         self._check(generate_mobile_base(dtype=jnp.float64))
 
     def test_mobile_arm(self):
-        from gpmp2_tpu.robots import generate_mobile_arm
+        from gpmp2_jax.robots import generate_mobile_arm
 
         self._check(generate_mobile_arm("SimpleTwoLinksArm", dtype=jnp.float64))
 
     def test_mobile_two_arms(self):
-        from gpmp2_tpu.robots import generate_mobile_arm
+        from gpmp2_jax.robots import generate_mobile_arm
 
         self._check(generate_mobile_arm("SimpleTwoArms", dtype=jnp.float64))
 
     def test_vector_jaco(self):
-        from gpmp2_tpu.robots import generate_mobile_arm
+        from gpmp2_jax.robots import generate_mobile_arm
 
         self._check(generate_mobile_arm("Vector", dtype=jnp.float64))
 
     def test_pr2_vetlin2arms(self):
-        from gpmp2_tpu.robots import generate_mobile_arm
+        from gpmp2_jax.robots import generate_mobile_arm
 
         self._check(generate_mobile_arm("PR2", dtype=jnp.float64))
 
     def test_vetlin_reverse(self):
-        from gpmp2_tpu.geometry.se3 import Pose3
-        from gpmp2_tpu.kinematics.fk import ArmFK, Pose2MobileVetLinArmFK
-        from gpmp2_tpu.kinematics.robot import make_robot_model
+        from gpmp2_jax.geometry.se3 import Pose3
+        from gpmp2_jax.kinematics.fk import ArmFK, Pose2MobileVetLinArmFK
+        from gpmp2_jax.kinematics.robot import make_robot_model
 
         eye = jnp.eye(3, dtype=jnp.float64)
         arm = ArmFK.create([0.4, 0.3], [0.1, -0.2], [0.0, 0.1], dtype=jnp.float64)
@@ -181,11 +181,11 @@ class TestLimitLinearization:
     def test_limits_b_matches_ad_gradient(self):
         import dataclasses
         import jax
-        from gpmp2_tpu.planner import Trajectory, make_problem, traj_error
-        from gpmp2_tpu.planner.problem import traj_linearize
-        from gpmp2_tpu.obstacle.sdf import PlanarSDF
+        from gpmp2_jax.planner import Trajectory, make_problem, traj_error
+        from gpmp2_jax.planner.problem import traj_linearize
+        from gpmp2_jax.obstacle.sdf import PlanarSDF
 
-        from gpmp2_tpu.robots import generate_arm
+        from gpmp2_jax.robots import generate_arm
         robot = generate_arm("SimpleThreeLinksArm", dtype=jnp.float64)
         sdf = PlanarSDF(origin=jnp.asarray([-50.0, -50.0], jnp.float64),
                         cell_size=jnp.asarray(1.0, jnp.float64),
@@ -240,10 +240,10 @@ class TestGradientConsistency:
     def test_b_equals_minus_grad(self):
         import dataclasses as dc
 
-        from gpmp2_tpu.planner import Trajectory
-        from gpmp2_tpu.planner.batch import set_workspace_prior
-        from gpmp2_tpu.planner.problem import traj_error, traj_linearize
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.planner import Trajectory
+        from gpmp2_jax.planner.batch import set_workspace_prior
+        from gpmp2_jax.planner.problem import traj_error, traj_linearize
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
         F64 = jnp.float64
         robot = generate_arm("WAMArm", dtype=F64)

@@ -4,15 +4,15 @@ WAMDeskDataset world, and native-vs-fallback parity."""
 import numpy as np
 import pytest
 
-from gpmp2_tpu import native
-from gpmp2_tpu.datasets import (
+from gpmp2_jax import native
+from gpmp2_jax.datasets import (
     generate_2d_dataset,
     generate_3d_dataset,
     planar_sdf_from_occupancy,
     sdf_from_occupancy,
     signed_distance_field_2d,
 )
-from gpmp2_tpu.obstacle.sdf import planar_sdf_lookup, sdf_lookup
+from gpmp2_jax.obstacle.sdf import planar_sdf_lookup, sdf_lookup
 
 import jax.numpy as jnp
 

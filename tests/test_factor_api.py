@@ -1,4 +1,4 @@
-"""Public config-space factor API tests (gpmp2_tpu.kinematics.factors).
+"""Public config-space factor API tests (gpmp2_jax.kinematics.factors).
 
 Mirrors the reference's per-factor test files (testJointLimitFactorVector.cpp,
 testVelocityLimitFactorVector.cpp, testGoalFactorArm.cpp,
@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.geometry.statespace import SE2VectorSpace, VectorSpace
-from gpmp2_tpu.kinematics import (
+from gpmp2_jax.geometry.statespace import SE2VectorSpace, VectorSpace
+from gpmp2_jax.kinematics import (
     goal_factor_error,
     hinge_limit_cost,
     joint_limit_error,
@@ -21,8 +21,8 @@ from gpmp2_tpu.kinematics import (
     workspace_pose_error,
     workspace_position_error,
 )
-from gpmp2_tpu.kinematics.fk import link_poses
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.kinematics.fk import link_poses
+from gpmp2_jax.robots import generate_arm
 
 
 def fd_jac(f, x, eps=1e-6):
@@ -123,14 +123,14 @@ class TestChunkedLoop:
     def _setup(self, method):
         import dataclasses
 
-        from gpmp2_tpu.kinematics import PointRobotFK, make_robot_model
-        from gpmp2_tpu.obstacle.sdf import PlanarSDF
-        from gpmp2_tpu.planner import TrajOptimizerSetting
-        from gpmp2_tpu.planner.batch import (
+        from gpmp2_jax.kinematics import PointRobotFK, make_robot_model
+        from gpmp2_jax.obstacle.sdf import PlanarSDF
+        from gpmp2_jax.planner import TrajOptimizerSetting
+        from gpmp2_jax.planner.batch import (
             infer_batch_axes, make_problem, optimizer_params_from_setting,
             plan_batch,
         )
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
         xs = np.linspace(-2, 2, 41)
         X, Y = np.meshgrid(xs, xs, indexing="xy")

@@ -15,19 +15,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu.kinematics.fk import PointRobotFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.planner import (
+from gpmp2_jax.kinematics.fk import PointRobotFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.planner import (
     FactorGraph,
     TrajOptimizerSetting,
     Trajectory,
     make_problem,
 )
-from gpmp2_tpu.planner.problem import traj_error, traj_linearize
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-from gpmp2_tpu.robots import generate_arm
-from gpmp2_tpu.solver.optimize import OptimizerParams
+from gpmp2_jax.planner.problem import traj_error, traj_linearize
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.robots import generate_arm
+from gpmp2_jax.solver.optimize import OptimizerParams
 
 
 def circle_sdf_2d(n=41, lim=2.0, r=0.5):
@@ -68,7 +68,7 @@ def build_manual_graph(robot, sdf, setting, start, goal):
 
 class TestStructure:
     def test_rejects_nonadjacent_binary(self):
-        from gpmp2_tpu.geometry.statespace import VectorSpace
+        from gpmp2_jax.geometry.statespace import VectorSpace
 
         g = FactorGraph(VectorSpace(2), 5)
         with pytest.raises(ValueError, match="adjacent"):
@@ -164,7 +164,7 @@ class TestOptimize:
         res = g.optimize(
             init, OptimizerParams(method="lm", max_iter=200, rel_thresh=1e-8)
         )
-        from gpmp2_tpu.kinematics.fk import link_poses
+        from gpmp2_jax.kinematics.fk import link_poses
 
         ee = link_poses(robot.fk, res.traj.pose[N]).trans[-1]
         np.testing.assert_allclose(np.asarray(ee), np.asarray(goal_pt), atol=1e-2)

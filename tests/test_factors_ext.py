@@ -7,22 +7,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.geometry import so3
-from gpmp2_tpu.kinematics.fk import link_poses
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.planner import (
+from gpmp2_jax.geometry import so3
+from gpmp2_jax.kinematics.fk import link_poses
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.planner import (
     TrajOptimizerSetting,
     batch_traj_optimize,
     make_problem,
     traj_error,
 )
-from gpmp2_tpu.planner.batch import set_workspace_prior
-from gpmp2_tpu.planner.problem import (
+from gpmp2_jax.planner.batch import set_workspace_prior
+from gpmp2_jax.planner.problem import (
     _selfcoll_res,
     _selfcoll_res_and_jac,
     _dyn_res,
 )
-from gpmp2_tpu.robots import generate_arm, generate_mobile_base
+from gpmp2_jax.robots import generate_arm, generate_mobile_base
 
 
 def far_sdf():
@@ -90,14 +90,14 @@ class TestWorkspacePriors:
             goal_pose_w=jnp.full((3,), 1.0, jnp.float64),
             goal_vel_w=jnp.full((3,), 1.0, jnp.float64),
         )
-        from gpmp2_tpu.planner.batch import plan_batch, infer_batch_axes
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-        from gpmp2_tpu.solver.optimize import OptimizerParams
+        from gpmp2_jax.planner.batch import plan_batch, infer_batch_axes
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.solver.optimize import OptimizerParams
 
         probs = jax.tree_util.tree_map(lambda x: x[None], prob)
         axes = jax.tree_util.tree_map(lambda x: 0, probs)
         t0 = init_traj_straight_line(arm.space, start, goal, 6, 3.0)
-        from gpmp2_tpu.planner.problem import Trajectory
+        from gpmp2_jax.planner.problem import Trajectory
 
         res = plan_batch(
             probs, Trajectory(t0.pose[None], t0.vel[None]),
@@ -115,7 +115,7 @@ class TestWorkspacePriors:
         q = jnp.asarray([0.3, -0.4, 0.2])
         R = link_poses(arm.fk, q).rot[2]
         prob = set_workspace_prior(prob, 0, 0, 2, rot=R, rot_sigma=1e-3)
-        from gpmp2_tpu.planner.problem import _ws_residuals
+        from gpmp2_jax.planner.problem import _ws_residuals
 
         r = _ws_residuals(prob, q[None])
         np.testing.assert_allclose(np.asarray(r[0, :3]), 0.0, atol=1e-10)

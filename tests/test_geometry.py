@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu.geometry import se2, se3, so3
-from gpmp2_tpu.geometry.statespace import SE2Space, SE2VectorSpace, SE3Space, VectorSpace
+from gpmp2_jax.geometry import se2, se3, so3
+from gpmp2_jax.geometry.statespace import SE2Space, SE2VectorSpace, SE3Space, VectorSpace
 
 
 def rng(seed=0):
@@ -196,7 +196,7 @@ class TestSE3Space:
         np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-12)
 
     def test_matches_se3_module(self):
-        from gpmp2_tpu.geometry import se3
+        from gpmp2_jax.geometry import se3
 
         space = SE3Space()
         r = rng(12)

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu.geometry import se2, se3
-from gpmp2_tpu.geometry.statespace import (
+from gpmp2_jax.geometry import se2, se3
+from gpmp2_jax.geometry.statespace import (
     SE2Space,
     SE2VectorSpace,
     SE3Space,
     VectorSpace,
 )
-from gpmp2_tpu.gp import (
+from gpmp2_jax.gp import (
     calc_lambda,
     calc_phi,
     calc_psi,
@@ -56,6 +56,17 @@ class TestGPUtils:
         psi1 = np.asarray(calc_psi(Qc, dt, dt))
         np.testing.assert_allclose(lam1, np.zeros((4, 4)), atol=1e-10)
         np.testing.assert_allclose(psi1, np.eye(4), atol=1e-10)
+
+    @pytest.mark.parametrize("fn", [calc_lambda, calc_psi],
+                             ids=["lambda", "psi"])
+    def test_interpolation_products_at_full_f32(self, fn):
+        """The interpolation matrices' products ask for full float32: at
+        DEFAULT precision a GPU may compute them in TF32."""
+        text = str(jax.make_jaxpr(lambda tau: fn(jnp.eye(7), 0.2, tau))(
+            jnp.float32(0.05)))
+        n_dot = text.count("dot_general[")
+        assert n_dot > 0 and n_dot == text.count(
+            "precision=(Precision.HIGHEST, Precision.HIGHEST)")
 
 
 class TestGPPrior:
@@ -220,11 +231,11 @@ class TestSE3Chain:
     gp/tests/testGaussianProcessPriorPose3.cpp)."""
 
     def test_pose3_gp_chain_optimizes(self):
-        from gpmp2_tpu.gp import calc_Q_inv
-        from gpmp2_tpu.planner.batch import _retract_traj
-        from gpmp2_tpu.planner.problem import Trajectory
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-        from gpmp2_tpu.solver.optimize import OptimizerParams, optimize_batch
+        from gpmp2_jax.gp import calc_Q_inv
+        from gpmp2_jax.planner.batch import _retract_traj
+        from gpmp2_jax.planner.problem import Trajectory
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.solver.optimize import OptimizerParams, optimize_batch
 
         space = SE3Space()
         d, n = 6, 6

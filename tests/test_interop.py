@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gpmp2_tpu.planner.problem import Trajectory
-from gpmp2_tpu.utils import buffer_to_trajectory, trajectory_to_buffer
+from gpmp2_jax.planner.problem import Trajectory
+from gpmp2_jax.utils import buffer_to_trajectory, trajectory_to_buffer
 
 
 def test_roundtrip_and_clamp():

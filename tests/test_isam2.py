@@ -6,11 +6,11 @@ a fresh batch re-solve (SURVEY.md hard part 4)."""
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.kinematics.fk import PointRobotFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.planner import TrajOptimizerSetting, batch_traj_optimize
-from gpmp2_tpu.planner.isam2 import ISAM2BatchSessions, ISAM2TrajOptimizer
+from gpmp2_jax.kinematics.fk import PointRobotFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.planner import TrajOptimizerSetting, batch_traj_optimize
+from gpmp2_jax.planner.isam2 import ISAM2BatchSessions, ISAM2TrajOptimizer
 
 
 def _world():
@@ -115,7 +115,7 @@ class TestISAM2:
         np.testing.assert_allclose(
             np.asarray(inc.pose), np.asarray(fresh.traj.pose), atol=2e-2
         )
-        from gpmp2_tpu.planner import make_problem, traj_error
+        from gpmp2_jax.planner import make_problem, traj_error
 
         prob = make_problem(robot, sdf, start, zero, new_goal, zero, setting)
         e_inc = float(traj_error(prob, inc))
@@ -280,7 +280,7 @@ class TestBatchSessions:
 def _mobile_world():
     """SE(2) x R^2 mobile manipulator world (the reference's
     Pose2MobileArm2D replanner domain, ISAM2TrajOptimizer.h:140-152)."""
-    from gpmp2_tpu.robots import generate_mobile_arm
+    from gpmp2_jax.robots import generate_mobile_arm
 
     ys = -2.0 + 4.0 / 95 * np.arange(96)
     X, Y = np.meshgrid(ys, ys)

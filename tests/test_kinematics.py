@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu.geometry import se3, so3
-from gpmp2_tpu.geometry.se3 import Pose3
-from gpmp2_tpu.kinematics.fk import (
+from gpmp2_jax.geometry import se3, so3
+from gpmp2_jax.geometry.se3 import Pose3
+from gpmp2_jax.kinematics.fk import (
     ArmFK,
     PointRobotFK,
     Pose2Mobile2ArmsFK,
@@ -27,7 +27,7 @@ from gpmp2_tpu.kinematics.fk import (
     num_links_of,
     state_space_of,
 )
-from gpmp2_tpu.kinematics.robot import make_robot_model, sphere_centers_world
+from gpmp2_jax.kinematics.robot import make_robot_model, sphere_centers_world
 
 
 def fd_jacobian(f, x, eps=1e-7):

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu import PlanarSDF, PointRobotFK, make_robot_model
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.planner import (
+from gpmp2_jax import PlanarSDF, PointRobotFK, make_robot_model
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.planner import (
     TrajOptimizerSetting,
     Trajectory,
     build_planner_graph,
@@ -38,7 +38,7 @@ def multi_obstacle_sdf():
 
 class TestSampling:
     def test_gp_posterior_samples(self):
-        from gpmp2_tpu.geometry.statespace import StateSpace
+        from gpmp2_jax.geometry.statespace import StateSpace
 
         space = StateSpace("vector", 2)
         start = jnp.asarray([0.0, 0.0], F64)
@@ -126,7 +126,7 @@ class TestErrorParity:
         traj = Trajectory(pose[jnp.asarray(order)], vel[jnp.asarray(order)])
         e_tp = float(traj_error(tp, traj))
         # remove the start-state obstacle cost the chain graph includes
-        from gpmp2_tpu.planner.multigraph import _obs_res
+        from gpmp2_jax.planner.multigraph import _obs_res
 
         e_start_obs = 0.5 * float(prob.obs_w) * float(
             jnp.sum(_obs_res(prob, pose[0]) ** 2))
@@ -137,7 +137,7 @@ class TestOptimizeAndPath:
     def test_joint_optimize_and_dijkstra(self):
         robot = point_robot(r=1.5)
         sdf = multi_obstacle_sdf()
-        from gpmp2_tpu.geometry.statespace import StateSpace
+        from gpmp2_jax.geometry.statespace import StateSpace
 
         space = StateSpace("vector", 2)
         start = jnp.asarray([0.0, 0.0], F64)
@@ -182,10 +182,10 @@ class TestOptimizeAndPath:
         """The dense-solve size guard warns past ~tens of nodes."""
         import warnings
 
-        from gpmp2_tpu.geometry.statespace import VectorSpace
-        from gpmp2_tpu.kinematics.fk import PointRobotFK
-        from gpmp2_tpu.kinematics.robot import make_robot_model
-        from gpmp2_tpu.planner.multigraph import make_multigraph_problem
+        from gpmp2_jax.geometry.statespace import VectorSpace
+        from gpmp2_jax.kinematics.fk import PointRobotFK
+        from gpmp2_jax.kinematics.robot import make_robot_model
+        from gpmp2_jax.planner.multigraph import make_multigraph_problem
 
         robot = make_robot_model(PointRobotFK(), [(0, 0.1, (0.0, 0.0, 0.0))])
         xs = np.linspace(-2, 2, 21)

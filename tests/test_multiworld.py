@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.kinematics.fk import PointRobotFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.batch import (
+from gpmp2_jax.kinematics.fk import PointRobotFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.batch import (
     infer_batch_axes,
     optimizer_params_from_setting,
     plan_batch,
 )
-from gpmp2_tpu.planner.problem import collision_cost
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.planner.problem import collision_cost
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def disc_world(cy):

@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu import (
+from gpmp2_jax import (
     PlanarSDF,
     Pose2MobileBaseFK,
     PointRobotFK,
@@ -45,13 +45,13 @@ from gpmp2_tpu import (
     make_problem,
     make_robot_model,
 )
-from gpmp2_tpu.planner.problem import traj_error
-from gpmp2_tpu.datasets import (
+from gpmp2_jax.planner.problem import traj_error
+from gpmp2_jax.datasets import (
     generate_3d_dataset,
     planar_sdf_from_occupancy,
     sdf_from_occupancy,
 )
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -63,16 +63,20 @@ def load(name):
                    allow_pickle=True)
 
 
-def planar_sdf_from_box(shape, box, origin, cell):
+def planar_sdf_from_box(shape, box, origin, cell, dtype=F64):
     """Rebuild the oracle's occupancy (one axis-aligned block) and SDF."""
     occ = np.zeros(shape)
     r0, r1, c0, c1 = box
     occ[r0:r1, c0:c1] = 1.0
-    return planar_sdf_from_occupancy(origin, cell, occ, dtype=F64)
+    return planar_sdf_from_occupancy(origin, cell, occ, dtype=dtype)
 
 
-def check_costs_and_opt(prob, fx, robot, sdf, setting, rel_opt=0.01,
-                        **problem_kwargs):
+def check_costs_and_opt(fx, robot, sdf, setting, problem_kwargs,
+                        rel_opt=0.01):
+    prob = make_problem(
+        robot, sdf, fx["meta_start"], np.zeros(robot.dof), fx["meta_end"],
+        np.zeros(robot.dof), setting, dtype=F64, sdf_pack=False,
+        **problem_kwargs)
     init = Trajectory(jnp.asarray(fx["init_pose"], F64),
                       jnp.asarray(fx["init_vel"], F64))
     opt = Trajectory(jnp.asarray(fx["opt_pose"], F64),
@@ -142,12 +146,13 @@ def check_costs_and_opt(prob, fx, robot, sdf, setting, rel_opt=0.01,
 class TestPointRobot2D:
     """BASELINE config 1 (pointRobot examples; OneObstacleDataset-style)."""
 
-    def test_parity(self):
+    def build(self, dtype=F64):
         fx = load("pointrobot2d")
         sdf = planar_sdf_from_box((300, 300), fx["meta_occ_box"],
-                                  fx["meta_origin"], float(fx["meta_cell"]))
+                                  fx["meta_origin"], float(fx["meta_cell"]),
+                                  dtype)
         robot = make_robot_model(PointRobotFK(), [(0, 0.15, (0.0, 0.0, 0.0))],
-                                 dtype=F64)
+                                 dtype=dtype)
         setting = TrajOptimizerSetting(
             dof=2, total_step=int(fx["meta_n_steps"]),
             total_time=float(fx["meta_total_time"]),
@@ -156,21 +161,21 @@ class TestPointRobot2D:
             epsilon=float(fx["meta_eps"]),
             opt_type="lm", max_iter=100,
         )
-        prob = make_problem(
-            robot, sdf, fx["meta_start"], np.zeros(2), fx["meta_end"],
-            np.zeros(2), setting, dtype=F64, sdf_pack=False,
-        )
-        check_costs_and_opt(prob, fx, robot, sdf, setting)
+        return fx, robot, sdf, setting, {}
+
+    def test_parity(self):
+        check_costs_and_opt(*self.build())
 
 
 class TestArm3Planar:
     """BASELINE config 3: planar 3-link arm + joint limits."""
 
-    def test_parity(self):
+    def build(self, dtype=F64):
         fx = load("arm3_planar")
         sdf = planar_sdf_from_box((300, 300), fx["meta_occ_box"],
-                                  fx["meta_origin"], float(fx["meta_cell"]))
-        robot = generate_arm("SimpleThreeLinksArm", dtype=F64)
+                                  fx["meta_origin"], float(fx["meta_cell"]),
+                                  dtype)
+        robot = generate_arm("SimpleThreeLinksArm", dtype=dtype)
         setting = TrajOptimizerSetting(
             dof=3, total_step=int(fx["meta_n_steps"]),
             total_time=float(fx["meta_total_time"]),
@@ -184,22 +189,22 @@ class TestArm3Planar:
             pos_limit_sigma=float(fx["meta_lim_sigma"]),
             opt_type="lm", max_iter=100,
         )
-        prob = make_problem(
-            robot, sdf, fx["meta_start"], np.zeros(3), fx["meta_end"],
-            np.zeros(3), setting, dtype=F64, sdf_pack=False,
-        )
-        check_costs_and_opt(prob, fx, robot, sdf, setting)
+        return fx, robot, sdf, setting, {}
+
+    def test_parity(self):
+        check_costs_and_opt(*self.build())
 
 
 class TestMobileBaseSE2:
     """BASELINE config 2: SE(2) base, Lie GP prior + vehicle dynamics."""
 
-    def test_parity(self):
+    def build(self, dtype=F64):
         fx = load("mobilebase_se2")
         sdf = planar_sdf_from_box((500, 500), fx["meta_occ_box"],
-                                  fx["meta_origin"], float(fx["meta_cell"]))
+                                  fx["meta_origin"], float(fx["meta_cell"]),
+                                  dtype)
         robot = make_robot_model(Pose2MobileBaseFK(),
-                                 [(0, 0.25, (0.0, 0.0, 0.0))], dtype=F64)
+                                 [(0, 0.25, (0.0, 0.0, 0.0))], dtype=dtype)
         setting = TrajOptimizerSetting(
             dof=3, total_step=int(fx["meta_n_steps"]),
             total_time=float(fx["meta_total_time"]),
@@ -208,29 +213,26 @@ class TestMobileBaseSE2:
             epsilon=float(fx["meta_eps"]),
             opt_type="lm", max_iter=100,
         )
-        prob = make_problem(
-            robot, sdf, fx["meta_start"], np.zeros(3), fx["meta_end"],
-            np.zeros(3), setting, dtype=F64, sdf_pack=False,
+        return fx, robot, sdf, setting, dict(
             flag_vehicle_dynamics=True,
-            dyn_sigma=float(fx["meta_dyn_sigma"]),
-        )
-        check_costs_and_opt(prob, fx, robot, sdf, setting,
-                            flag_vehicle_dynamics=True,
-                            dyn_sigma=float(fx["meta_dyn_sigma"]))
+            dyn_sigma=float(fx["meta_dyn_sigma"]))
+
+    def test_parity(self):
+        check_costs_and_opt(*self.build())
 
 
 class TestWAM7:
     """BASELINE config 4: the canonical WAM benchmark
     (WAMPlannerExample.m:13-66, WAMDeskDataset)."""
 
-    def test_parity(self):
+    def build(self, dtype=F64):
         fx = load("wam7_3d")
         ds = generate_3d_dataset("WAMDeskDataset")
         sdf = sdf_from_occupancy(
             np.array([ds.origin_x, ds.origin_y, ds.origin_z]),
-            ds.cell_size, ds.map, dtype=F64,
+            ds.cell_size, ds.map, dtype=dtype,
         )
-        robot = generate_arm("WAMArm", dtype=F64)
+        robot = generate_arm("WAMArm", dtype=dtype)
         setting = TrajOptimizerSetting(
             dof=7, total_step=int(fx["meta_n_steps"]),
             total_time=float(fx["meta_total_time"]),
@@ -239,8 +241,34 @@ class TestWAM7:
             epsilon=float(fx["meta_eps"]),
             opt_type="lm", max_iter=100,
         )
-        prob = make_problem(
-            robot, sdf, fx["meta_start"], np.zeros(7), fx["meta_end"],
-            np.zeros(7), setting, dtype=F64, sdf_pack=False,
-        )
-        check_costs_and_opt(prob, fx, robot, sdf, setting)
+        return fx, robot, sdf, setting, {}
+
+    def test_parity(self):
+        check_costs_and_opt(*self.build())
+
+
+def lm_float32_within(case, rel_opt=0.01):
+    """The planner's own dtype against the float64 oracle: `case`'s graph
+    built in float32 and solved by LM from the straight-line init must
+    converge, not give up, and end within `rel_opt` of the oracle's
+    float64 LM cost (the north-star rule). Returns (ours, oracle)."""
+    fx, robot, sdf, setting, kw = case.build(jnp.float32)
+    f32 = jnp.float32
+    res = batch_traj_optimize(
+        robot, sdf, jnp.asarray(fx["meta_start"], f32),
+        jnp.zeros(robot.dof, f32), jnp.asarray(fx["meta_end"], f32),
+        jnp.zeros(robot.dof, f32), setting, dtype=f32, sdf_pack=False, **kw)
+    ours, oracle = float(res.error), float(fx["final_error"])
+    assert bool(res.converged) and not bool(res.gave_up), (
+        f"float32 LM: converged {bool(res.converged)}, gave_up "
+        f"{bool(res.gave_up)}")
+    assert ours <= oracle * (1.0 + rel_opt) + 1e-9, (
+        f"float32 LM: final cost {ours} not within {rel_opt:.0%} of the "
+        f"float64 oracle {oracle}")
+    return ours, oracle
+
+
+@pytest.mark.parametrize("case", [TestArm3Planar, TestMobileBaseSE2, TestWAM7],
+                         ids=lambda c: c.__name__)
+def test_lm_float32_within_oracle(case):
+    lm_float32_within(case())

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpmp2_tpu.parallel import make_mesh
-from gpmp2_tpu.solver import (
+from gpmp2_jax.parallel import make_mesh
+from gpmp2_jax.solver import (
     block_tridiag_solve,
     block_tridiag_solve_partitioned,
     block_tridiag_solve_ts_sharded,
 )
-from gpmp2_tpu.solver.partitioned import block_tridiag_solve_matrhs
+from gpmp2_jax.solver.partitioned import block_tridiag_solve_matrhs
 
 
 def _system(n, m, seed=0, dtype=np.float64):
@@ -88,23 +88,9 @@ class TestTsSharded:
 
 
 class TestDispatch:
-    def test_long_horizon_partitioned_opt_in(self, monkeypatch):
-        """The single-device Schur path is OPT-IN (GPMP2_TPU_PARTITIONED=1;
-        measured slower than the scan on-chip, LONGHORIZON.json) and still
-        matches the sequential scan when enabled."""
-        from gpmp2_tpu.ops.btsolve import batched_block_tridiag_solve
-
-        monkeypatch.setenv("GPMP2_TPU_PARTITIONED", "1")
-        D, U, b = _system(300, 4, seed=11)
-        DB, UB, bb = D[None], U[None], b[None]
-        x = batched_block_tridiag_solve(DB, UB, bb)
-        x_ref = block_tridiag_solve(D, U, b)
-        np.testing.assert_allclose(np.asarray(x[0]), np.asarray(x_ref),
-                                   rtol=1e-8, atol=1e-8)
-
     def test_long_horizon_default_scan(self):
         """Default long-horizon dispatch stays on the scan."""
-        from gpmp2_tpu.ops.btsolve import batched_block_tridiag_solve
+        from gpmp2_jax.solver.blocktridiag import batched_block_tridiag_solve
 
         D, U, b = _system(300, 4, seed=12)
         x = batched_block_tridiag_solve(D[None], U[None], b[None])

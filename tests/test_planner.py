@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.kinematics.fk import ArmFK, PointRobotFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import PlanarSDF, SignedDistanceField
-from gpmp2_tpu.planner import (
+from gpmp2_jax.kinematics.fk import ArmFK, PointRobotFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import PlanarSDF, SignedDistanceField
+from gpmp2_jax.planner import (
     TrajOptimizerSetting,
     Trajectory,
     batch_traj_optimize,
@@ -19,9 +19,9 @@ from gpmp2_tpu.planner import (
     make_problem,
     traj_error,
 )
-from gpmp2_tpu.planner.batch import optimizer_params_from_setting, plan_batch
-from gpmp2_tpu.planner.problem import collision_cost
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.planner.batch import optimizer_params_from_setting, plan_batch
+from gpmp2_jax.planner.problem import collision_cost
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def circle_sdf_2d(rows=96, cols=96, origin=(-1.5, -1.5), cell=3.0 / 95,
@@ -258,7 +258,7 @@ class TestPlannerCompaction:
     def test_compacted_plan_batch_matches(self):
         import dataclasses
 
-        from gpmp2_tpu.planner.batch import (
+        from gpmp2_jax.planner.batch import (
             infer_batch_axes, optimizer_params_from_setting, plan_batch,
         )
 
@@ -317,7 +317,7 @@ class TestInterpolateTrajLie:
         """A constant-body-twist trajectory is in the GP mean's null space:
         densified states must lie exactly on the geodesic
         p(t) = p0 * Exp(t w), v(t) = w."""
-        from gpmp2_tpu.geometry.statespace import SE2Space
+        from gpmp2_jax.geometry.statespace import SE2Space
 
         space = SE2Space()
         dt = 0.5
@@ -351,8 +351,8 @@ class TestInterpolateTrajLie:
         """Non-trivial (non-geodesic) SE(2) trajectory: densification keeps
         every original support state bit-exactly at stride (inter+1) and
         matches the GP interpolator state-by-state."""
-        from gpmp2_tpu.geometry.statespace import SE2Space
-        from gpmp2_tpu.gp.interpolator import (interp_coeffs,
+        from gpmp2_jax.geometry.statespace import SE2Space
+        from gpmp2_jax.gp.interpolator import (interp_coeffs,
                                                interpolate_state)
 
         space = SE2Space()
@@ -389,7 +389,7 @@ class TestInterpolateTrajLie:
         base block matches pure-SE(2) densification and the arm block
         matches pure-vector densification (interpolatePose2MobileArmTraj
         semantics, TrajUtils.cpp:236-275)."""
-        from gpmp2_tpu.geometry.statespace import (SE2Space, SE2VectorSpace,
+        from gpmp2_jax.geometry.statespace import (SE2Space, SE2VectorSpace,
                                                    VectorSpace)
 
         rng = np.random.default_rng(5)

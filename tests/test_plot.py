@@ -13,14 +13,14 @@ import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
-from gpmp2_tpu.datasets import (
+from gpmp2_jax.datasets import (
     generate_2d_dataset,
     generate_3d_dataset,
     planar_sdf_from_occupancy,
     sdf_from_occupancy,
 )
-from gpmp2_tpu.robots import generate_arm, generate_mobile_arm
-from gpmp2_tpu.utils import plot as gplot
+from gpmp2_jax.robots import generate_arm, generate_mobile_arm
+from gpmp2_jax.utils import plot as gplot
 
 
 @pytest.fixture(scope="module")

@@ -1,13 +1,13 @@
 """Tests for the float64 give-up rescue (OptimizerParams.rescue_f64).
 
 The reference runs GTSAM in double precision throughout; the f32 batched
-path can give up (LM lambda blow-up) on draws the f64 oracle solves
-(docs/perf_notes.md round-4 quality note measured this as the entire
-Arm3Limits2D converged gap). plan_batch's rescue re-solves gave-up lanes
+path can give up (LM lambda blow-up) on draws the f64 oracle solves (on
+the previous accelerator, the entire Arm3Limits2D converged gap).
+plan_batch's rescue re-solves gave-up lanes
 from the initial trajectory in f64 on the CPU backend and scatters the
 results back. These tests exercise the machinery deterministically by
 forcing gave_up lanes (CPU f32 happens to converge on the suite draws —
-the real give-ups are TPU-rounding-specific)."""
+the real give-ups depend on the device's rounding)."""
 
 import dataclasses
 
@@ -15,18 +15,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-from gpmp2_tpu.kinematics import PointRobotFK, make_robot_model
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.batch import (
+from gpmp2_jax.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+from gpmp2_jax.kinematics import PointRobotFK, make_robot_model
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.batch import (
     _rescue_gave_up_f64,
     infer_batch_axes,
     optimizer_params_from_setting,
     plan_batch,
 )
-from gpmp2_tpu.planner.problem import Trajectory
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-from gpmp2_tpu.solver.optimize import OptResult
+from gpmp2_jax.planner.problem import Trajectory
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.solver.optimize import OptResult
 
 
 def _setup(B=8):
@@ -116,8 +116,8 @@ class TestRescueF64:
         fields (None subtrees) than planar ones; the rescue's axes
         flattening must pass them through untouched (r5 regression: the
         WAM suite config crashed with a dtype-object error here)."""
-        from gpmp2_tpu.obstacle.sdf import SignedDistanceField
-        from gpmp2_tpu.robots import generate_arm
+        from gpmp2_jax.obstacle.sdf import SignedDistanceField
+        from gpmp2_jax.robots import generate_arm
 
         arm = generate_arm("SimpleTwoLinksArm")
         n = 16
@@ -163,7 +163,7 @@ class TestRescueF64:
         packed table is a PER-LANE leaf (axis 0), replaced by a scalar
         placeholder for the transfer and recomputed as packed=None — the
         taken per-lane `data` must drive the rescue correctly."""
-        from gpmp2_tpu.obstacle.sdf import PlanarSDF
+        from gpmp2_jax.obstacle.sdf import PlanarSDF
 
         n = 32
         ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
@@ -215,9 +215,9 @@ class TestRescueF64:
             rtol=1e-3)
 
     def test_host_copy_caches_per_object(self, monkeypatch):
-        """Shared problem leaves (e.g. a 108 MB SDF field over a remote
-        tunnel) must transfer once per object, not once per rescue call."""
-        from gpmp2_tpu.planner import batch as batch_mod
+        """Shared problem leaves (e.g. a 108 MB SDF field) must transfer to
+        the host once per object, not once per rescue call."""
+        from gpmp2_jax.planner import batch as batch_mod
 
         batch_mod._RESCUE_HOST_CACHE.clear()
         calls = {"n": 0}

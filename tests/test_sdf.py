@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.obstacle.factors import hinge_loss
-from gpmp2_tpu.obstacle.sdf import (
+from gpmp2_jax.obstacle.factors import hinge_loss
+from gpmp2_jax.obstacle.sdf import (
     PlanarSDF,
     SignedDistanceField,
     planar_sdf_lookup,
@@ -146,7 +146,7 @@ class TestPacked:
     exactly, everywhere in range (including the clamped top boundary)."""
 
     def test_packed_3d_matches_unpacked(self):
-        from gpmp2_tpu.obstacle.sdf import pack_sdf
+        from gpmp2_jax.obstacle.sdf import pack_sdf
 
         sdf, data = make_3d()
         packed = pack_sdf(sdf)
@@ -168,7 +168,7 @@ class TestPacked:
                                    atol=1e-12)
 
     def test_packed_planar_matches_unpacked(self):
-        from gpmp2_tpu.obstacle.sdf import pack_planar_sdf
+        from gpmp2_jax.obstacle.sdf import pack_planar_sdf
 
         sdf, data = make_planar()
         packed = pack_planar_sdf(sdf)
@@ -197,7 +197,7 @@ class TestPacked:
         np.testing.assert_allclose(np.asarray(g0)[m], np.asarray(g2)[m],
                                    atol=1e-12)
         # component lookup agrees on both layouts too
-        from gpmp2_tpu.obstacle.sdf import planar_sdf_lookup_components
+        from gpmp2_jax.obstacle.sdf import planar_sdf_lookup_components
         for pk in (packed, packed_cm):
             dc, gx, gy, okc = planar_sdf_lookup_components(
                 pk, jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]))
@@ -206,8 +206,8 @@ class TestPacked:
                                        np.asarray(dc)[m], atol=1e-12)
 
     def test_make_problem_autopacks(self):
-        from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-        from gpmp2_tpu.robots import generate_arm
+        from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+        from gpmp2_jax.robots import generate_arm
 
         arm = generate_arm("SimpleTwoLinksArm")
         sdf, _ = make_planar()
@@ -243,7 +243,7 @@ class TestScreened:
         )
 
     def test_bound_is_conservative(self):
-        from gpmp2_tpu.obstacle.sdf import screen_sdf
+        from gpmp2_jax.obstacle.sdf import screen_sdf
 
         sdf = self._field()
         s = screen_sdf(sdf, factor=8)
@@ -260,8 +260,8 @@ class TestScreened:
         assert bool(jnp.all(bound <= dist + 1e-6))
 
     def test_screened_hinge_exact(self):
-        from gpmp2_tpu.obstacle.factors import hinge_loss
-        from gpmp2_tpu.obstacle.sdf import screen_sdf
+        from gpmp2_jax.obstacle.factors import hinge_loss
+        from gpmp2_jax.obstacle.sdf import screen_sdf
 
         sdf = self._field()
         s = screen_sdf(sdf, factor=8)
@@ -288,11 +288,11 @@ class TestScreened:
         on identical errors (the screen is invisible to the optimizer)."""
         import dataclasses as dc
 
-        from gpmp2_tpu.obstacle.sdf import screen_sdf
-        from gpmp2_tpu.planner import TrajOptimizerSetting, Trajectory, make_problem
-        from gpmp2_tpu.planner.problem import traj_linearize
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
-        from gpmp2_tpu.robots import generate_arm
+        from gpmp2_jax.obstacle.sdf import screen_sdf
+        from gpmp2_jax.planner import TrajOptimizerSetting, Trajectory, make_problem
+        from gpmp2_jax.planner.problem import traj_linearize
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.robots import generate_arm
 
         robot = generate_arm("WAMArm")
         sdf = self._field(64)
@@ -320,8 +320,8 @@ class TestBoxScreen:
     unscreened hinge."""
 
     def _built(self):
-        from gpmp2_tpu.datasets.generate3d import Dataset3D, add_obstacle_3d
-        from gpmp2_tpu.datasets.sdf_gen import (
+        from gpmp2_jax.datasets.generate3d import Dataset3D, add_obstacle_3d
+        from gpmp2_jax.datasets.sdf_gen import (
             dataset_screen_boxes,
             sdf_from_occupancy,
         )
@@ -356,7 +356,7 @@ class TestBoxScreen:
         assert bool(jnp.all(bound[sel] <= dist[sel] + 1e-6))
 
     def test_screened_hinge_exact(self):
-        from gpmp2_tpu.obstacle.factors import hinge_loss
+        from gpmp2_jax.obstacle.factors import hinge_loss
 
         plain, screened = self._built()
         rng = np.random.default_rng(6)
@@ -377,7 +377,7 @@ class TestBoxScreen:
     def test_per_sphere_thresholds(self):
         """screen_thresh broadcast over a trailing sphere axis (the
         planner's (..., S) eps_total shape)."""
-        from gpmp2_tpu.obstacle.factors import hinge_loss
+        from gpmp2_jax.obstacle.factors import hinge_loss
 
         plain, screened = self._built()
         rng = np.random.default_rng(7)

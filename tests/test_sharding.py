@@ -5,17 +5,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpmp2_tpu.kinematics.fk import PointRobotFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import PlanarSDF
-from gpmp2_tpu.parallel import make_mesh, shard_problems
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.planner.batch import (
+from gpmp2_jax.kinematics.fk import PointRobotFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import PlanarSDF
+from gpmp2_jax.parallel import make_mesh, shard_problems
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.planner.batch import (
     infer_batch_axes,
     optimizer_params_from_setting,
     plan_batch,
 )
-from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
 
 def _setup(B=16):
@@ -76,7 +76,7 @@ class TestSharding:
         """On-device psum'd fleet statistics match host-side reductions,
         and work both with a packed and an UNPACKED shared SDF (the
         `packed=None` leaf regression in shard_problems axes flattening)."""
-        from gpmp2_tpu.parallel import fleet_stats
+        from gpmp2_jax.parallel import fleet_stats
 
         probs, axes, init, params = _setup(B=16)
         mesh = make_mesh(axis_names=("dp",))

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 from dataclasses import replace as dataclasses_replace
 
-from gpmp2_tpu.solver.blocktridiag import block_tridiag_solve
-from gpmp2_tpu.solver.optimize import OptimizerParams, optimize_batch
+from gpmp2_jax.solver.blocktridiag import block_tridiag_solve
+from gpmp2_jax.solver.optimize import OptimizerParams, optimize_batch
 
 
 def random_block_tridiag(rng, n, m, cond_boost=0.0):
@@ -74,7 +74,7 @@ class TestBlockTridiag:
 
     def test_ill_conditioned_prior_scale(self):
         """Mix of 1e8 (prior) and 1e2 (obstacle) precisions: Jacobi scaling
-        keeps the solve accurate — the float32/TPU-critical case."""
+        keeps the solve accurate — the float32-critical case."""
         rng = np.random.default_rng(4)
         n, m = 5, 4
         H, D, U, b = random_block_tridiag(rng, n, m)
@@ -214,8 +214,8 @@ class TestOptimizer:
 
 # Compaction must be invisible: bitwise on CPU, where batch size never
 # changes kernel tiling; on accelerator backends different batch shapes may
-# tile/pad the pallas block-tridiag kernel differently, so allow a tiny
-# float tolerance there instead of flaking.
+# compile to differently tiled kernels, so allow a tiny float tolerance
+# there instead of flaking.
 _EXACT = jax.default_backend() == "cpu"
 _C_TOL = dict(rtol=0, atol=0) if _EXACT else dict(rtol=1e-12, atol=1e-12)
 
@@ -323,24 +323,46 @@ class TestCompaction:
         )
 
 
-class TestLaneLayout:
-    """lin_layout='lane' (batch-last normal equations through the whole
-    optimizer, solver/optimize.py) must match the default batch layout
-    bit-for-bit on every loop mode."""
+def test_optimizer_traces_contractions_at_full_f32():
+    """Every contraction the optimizer traces, the caller's own linearize
+    included, asks for full float32 whatever the caller's default."""
+    from gpmp2_jax.solver.optimize import _build_fns
+
+    B, n, m = 2, 3, 2
+
+    def lin(data, x):
+        J = jnp.broadcast_to(jnp.eye(m), (B, n, m, m))
+        H = J @ J  # no precision given: the optimizer supplies it
+        r = jnp.einsum("bnij,bnj->bni", J, x)
+        return H, jnp.zeros((B, n - 1, m, m)), -r, jnp.sum(r * r, (1, 2))
+
+    make_init, step = _build_fns(lin, lambda x, d: x + d,
+                                 OptimizerParams(method="lm"))
+    text = str(jax.make_jaxpr(
+        lambda x: step(None, make_init(None, x)))(jnp.ones((B, n, m))))
+    n_dot = text.count("dot_general[")
+    assert n_dot > 0 and n_dot == text.count(
+        "precision=(Precision.HIGHEST, Precision.HIGHEST)")
+
+
+class TestFlatLayout:
+    """lin_layout='flat' (block-flattened normal equations, which
+    plan_batch picks for LM/GN) must match the (B, n, m, m) batch layout
+    on every loop mode."""
 
     def _setup(self):
         import numpy as np
 
-        from gpmp2_tpu.kinematics.fk import PointRobotFK
-        from gpmp2_tpu.kinematics.robot import make_robot_model
-        from gpmp2_tpu.obstacle.sdf import PlanarSDF
-        from gpmp2_tpu.planner import TrajOptimizerSetting
-        from gpmp2_tpu.planner.batch import (
+        from gpmp2_jax.kinematics.fk import PointRobotFK
+        from gpmp2_jax.kinematics.robot import make_robot_model
+        from gpmp2_jax.obstacle.sdf import PlanarSDF
+        from gpmp2_jax.planner import TrajOptimizerSetting
+        from gpmp2_jax.planner.batch import (
             infer_batch_axes,
             make_problem,
             optimizer_params_from_setting,
         )
-        from gpmp2_tpu.planner.traj_utils import init_traj_straight_line
+        from gpmp2_jax.planner.traj_utils import init_traj_straight_line
 
         ys = -1.5 + 3.0 / 95 * np.arange(96)
         X, Y = np.meshgrid(ys, ys)
@@ -373,46 +395,47 @@ class TestLaneLayout:
 
     @pytest.mark.parametrize("loop", ["chunked", "static"])
     @pytest.mark.parametrize("method", ["lm", "gaussnewton"])
-    def test_lane_matches_batch(self, loop, method):
+    def test_flat_matches_batch(self, loop, method):
         import dataclasses
 
-        from gpmp2_tpu.planner.batch import plan_batch
+        from gpmp2_jax.planner.batch import (_retract_for, _vmapped_lin_err,
+                                             plan_batch)
 
         probs, axes, init, params = self._setup()
         params = dataclasses.replace(params, loop=loop, method=method,
                                      max_iter=12, chunk_size=4)
-        r_b = plan_batch(probs, init, params, axes)
-        r_l = plan_batch(
-            probs, init,
-            dataclasses.replace(params, lin_layout="lane"), axes)
-        np.testing.assert_allclose(np.asarray(r_l.error),
+        r_f = plan_batch(probs, init, params, axes)
+        lin, err = _vmapped_lin_err(axes)
+        r_b = optimize_batch(lin, err, _retract_for(probs.space), init,
+                             params, data=probs, data_axes=axes)
+        np.testing.assert_allclose(np.asarray(r_f.error),
                                    np.asarray(r_b.error), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(r_l.traj.pose),
+        np.testing.assert_allclose(np.asarray(r_f.traj.pose),
                                    np.asarray(r_b.traj.pose), atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(r_l.iterations),
+        np.testing.assert_array_equal(np.asarray(r_f.iterations),
                                       np.asarray(r_b.iterations))
 
-    def test_lane_rejects_dogleg(self):
+    def test_flat_rejects_dogleg(self):
         import dataclasses
 
-        from gpmp2_tpu.planner.batch import plan_batch
+        from gpmp2_jax.planner.batch import plan_batch
 
         probs, axes, init, params = self._setup()
         params = dataclasses.replace(params, method="dogleg",
-                                     lin_layout="lane")
-        with pytest.raises(ValueError, match="lane"):
+                                     lin_layout="flat")
+        with pytest.raises(ValueError, match="flat"):
             plan_batch(probs, init, params, axes)
 
-    def test_lane_compaction_path(self):
-        """Compaction's lane-aware gather/scatter (batch on the LAST axis
-        of the lin triple) returns the same result as no compaction."""
+    def test_flat_compaction_path(self):
+        """Compaction's gather/scatter of the flat lin triple returns the
+        same result as no compaction."""
         import dataclasses
 
-        from gpmp2_tpu.planner.batch import plan_batch
+        from gpmp2_jax.planner.batch import plan_batch
 
         probs, axes, init, params = self._setup()
         base = dataclasses.replace(params, loop="chunked", chunk_size=2,
-                                   lin_layout="lane", compact_floor=2)
+                                   compact_floor=2)
         r_nc = plan_batch(probs, init,
                           dataclasses.replace(base, compact=False), axes)
         r_c = plan_batch(probs, init,

@@ -13,11 +13,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from gpmp2_tpu.kinematics.fk import ArmFK
-from gpmp2_tpu.kinematics.robot import make_robot_model
-from gpmp2_tpu.obstacle.sdf import SignedDistanceField
-from gpmp2_tpu.planner import TrajOptimizerSetting, make_problem
-from gpmp2_tpu.robots import generate_arm
+from gpmp2_jax.kinematics.fk import ArmFK
+from gpmp2_jax.kinematics.robot import make_robot_model
+from gpmp2_jax.obstacle.sdf import SignedDistanceField
+from gpmp2_jax.planner import TrajOptimizerSetting, make_problem
+from gpmp2_jax.robots import generate_arm
 
 
 def small_sdf_3d(n=8):

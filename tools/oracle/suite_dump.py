@@ -85,12 +85,12 @@ def main():
         os.path.dirname(os.path.abspath(__file__)), "dumps")
     os.makedirs(outdir, exist_ok=True)
 
-    from gpmp2_tpu.datasets import (
+    from gpmp2_jax.datasets import (
         generate_2d_dataset,
         planar_sdf_from_occupancy,
     )
-    from gpmp2_tpu.kinematics import PointRobotFK, make_robot_model
-    from gpmp2_tpu.robots import generate_arm, generate_mobile_base
+    from gpmp2_jax.kinematics import PointRobotFK, make_robot_model
+    from gpmp2_jax.robots import generate_arm, generate_mobile_base
 
     B = int(os.environ.get("SUITE_BATCH", "512"))
     rng = np.random.default_rng(0)  # same seed & draw ORDER as bench_suite
